@@ -113,7 +113,7 @@ def _classifier_scenario(
         buf = _io.StringIO()
         summarize_rowwise_device(
             Distance.of_string("euclidean"), metric, twisted.matrix, queries,
-            keep_at_most=2, normalize=True, out=buf, backend=backend,
+            keep_at_most=2, normalize=True, out=buf,
         )
         lines = buf.getvalue().splitlines()
     t_project = time.perf_counter() - t0
@@ -212,7 +212,7 @@ def relatedness(scale=1, backend="host"):
         from kpop_tpu.ops.summaries import distance_rowwise_device
 
         dm = distance_rowwise_device(
-            dist, metric, twisted.matrix, twisted.matrix, backend=backend
+            dist, metric, twisted.matrix, twisted.matrix
         )
     t_dist = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -245,7 +245,7 @@ def main(argv=None):
                     choices=[*SCENARIOS, "all"])
     ap.add_argument("--scale", type=int, default=1)
     ap.add_argument("--backend", default="host",
-                    choices=["host", "jax", "pallas"])
+                    choices=["host", "jax"])
     args = ap.parse_args(argv)
     names = list(SCENARIOS) if args.scenario == "all" else [args.scenario]
     for name in names:

@@ -1,18 +1,15 @@
 #!/usr/bin/env python3
-"""Weak-scaling shape of the sharded CA and the kmer-sharded serving on a
-virtual CPU mesh (1/2/4/8 devices).
+"""Sharding overhead of the sharded CA and the kmer-sharded serving on a
+virtual CPU mesh (1/2/4/8 devices): a CPU statistic, not a device metric.
 
-BASELINE.md's north star row asks for spectra/s at 1 chip / 1 host / N
-hosts; multi-chip TPU hardware does not exist in this environment, so this
-records the honest substitute: a RELATIVE curve on the 8-virtual-device CPU
-mesh (xla_force_host_platform_device_count).  Virtual devices share one
-physical CPU, so the curve cannot show real speedup — what it demonstrates
-is that the sharded paths (Gram psum, kmer-partitioned serving psum) add no
+Virtual devices (xla_force_host_platform_device_count) share the host's
+physical cores, so the curve cannot show speedup; what it shows is that the
+sharded paths (Gram psum, kmer-partitioned serving psum) add no
 pathological overhead as the mesh grows: collective cost per batch is
 O(B x d), independent of the sharded axis.
 
 Each device count runs in its own subprocess (the device count must be set
-before JAX backend init).  Writes BENCH_SCALING.json at the repo root.
+before JAX backend init).  Prints the result as one JSON line.
 
 Usage:  python -m benchmarks.scaling           # full 1/2/4/8 curve
         python benchmarks/scaling.py --child N # (internal)
@@ -42,7 +39,7 @@ def _child(n_dev: int) -> None:
         os.environ.get("XLA_FLAGS", "")
         + f" --xla_force_host_platform_device_count={n_dev}"
     ).strip()
-    os.environ["KPOP_PLATFORM"] = "cpu"
+    os.environ["JAX_PLATFORMS"] = "cpu"
     import numpy as np
 
     from kpop_tpu.config import jax_setup
@@ -130,7 +127,7 @@ def _child(n_dev: int) -> None:
     print(json.dumps(record))
 
 
-def main(device_counts=(1, 2, 4, 8), out_path=None, repeats=3) -> dict:
+def main(device_counts=(1, 2, 4, 8), repeats=3) -> dict:
     points = []
     for n in device_counts:
         best = None
@@ -173,9 +170,9 @@ def main(device_counts=(1, 2, 4, 8), out_path=None, repeats=3) -> dict:
     result = {
         "label": "CPU-mesh RELATIVE curve (N virtual devices share "
                  "host_cpus physical cores, so the 4/8-device points pay "
-                 "thread-contention overhead that real chips would not; "
+                 "thread-contention overhead that real devices would not; "
                  "demonstrates BOUNDED sharding+dispatch overhead, not "
-                 "multi-chip speedup — see BASELINE.md)",
+                 "multi-device speedup)",
         "host_cpus": os.cpu_count(),
         "workload": {
             "ca_table": [CA_ROWS, CA_COLS],
@@ -197,9 +194,6 @@ def main(device_counts=(1, 2, 4, 8), out_path=None, repeats=3) -> dict:
             for p in points if "serving_vs_dp" in p
         },
     }
-    if out_path:
-        with open(out_path, "w") as f:
-            json.dump(result, f, indent=1, sort_keys=True)
     return result
 
 
@@ -207,10 +201,4 @@ if __name__ == "__main__":
     if len(sys.argv) >= 3 and sys.argv[1] == "--child":
         _child(int(sys.argv[2]))
     else:
-        out = os.path.join(REPO, "BENCH_SCALING.json")
-        res = main(out_path=out)
-        print(json.dumps({
-            "ca_rel_wall": res["ca_rel_wall"],
-            "serving_rel_wall": res["serving_rel_wall"],
-            "written": out,
-        }))
+        print(json.dumps(main()))

@@ -1,14 +1,14 @@
-"""kpop-tpu: a TPU-native (JAX/XLA/Pallas/pjit) framework for assembly-free,
+"""kpop-tpu: a JAX/XLA framework for assembly-free,
 alignment-free comparative analysis of genomes via full k-mer spectra.
 
 Re-designed from scratch with the capabilities of PaoloRibeca/KPop
 (reference layout: bin/KPopCount.ml, bin/KPopCountDB.ml, bin/KPopTwistDB.ml,
-src/KPopTwist, lib/{KMerDB,Matrix,Space,Twister}.ml), but built TPU-first:
+src/KPopTwist, lib/{KMerDB,Matrix,Space,Twister}.ml), but built for accelerators:
 
 - dense sharded ``[n_kmers, n_samples]`` spectra instead of hash tables,
 - correspondence analysis as a distributed JAX Gram-matrix eigendecomposition
   instead of R's ``ca`` package,
-- batched MXU matmuls for twist projection and all-pairs distances instead of
+- batched matmuls for twist projection and all-pairs distances instead of
   fork-parallel scalar loops,
 - ``jax.sharding.Mesh`` + ``shard_map`` collectives instead of fork+pipes.
 

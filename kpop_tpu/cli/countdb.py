@@ -16,8 +16,17 @@ from ..core.counter_db import CounterDB, TableFilter
 from ..core.matrix import KPopMatrix, MatrixType
 from ..core.space import Distance, distance_rowwise
 from ..core.transforms import Transformation
-from ..utils.cli import Args, Parser, parse_regexp_selector
+from ..utils.cli import Args, ParseError, Parser, parse_regexp_selector
 from ..utils.progress import set_verbose
+
+
+BACKENDS = ("host", "jax")
+
+
+def _backend(v: str) -> str:
+    if v not in BACKENDS:
+        raise ParseError(f"Invalid backend '{v}'")
+    return v
 
 
 def main(argv=None) -> int:
@@ -119,11 +128,12 @@ def main(argv=None) -> int:
     )
     p.opt(
         ["--backend"],
-        "'host'|'jax'|'pallas'",
+        "'host'|'jax'",
         ["compute backend for --distances: float64 host numpy (exact,",
-         "default), float32 device matmul ('jax'), or the tiled Pallas",
-         "kernel ('pallas', euclidean; kpop-tpu extensions)"],
-        lambda a: (lambda v: act(lambda st: st.update(backend=v)))(a.get()),
+         "default) or float32 device matmul ('jax', kpop-tpu extension)"],
+        lambda a: (lambda v: act(lambda st: st.update(backend=v)))(
+            _backend(a.get())
+        ),
         "host",
     )
 
@@ -141,11 +151,10 @@ def main(argv=None) -> int:
             m1 = db.submatrix_normalized(s1, st["distance_normalize"])
             m2 = db.submatrix_normalized(s2, st["distance_normalize"])
             metric = np.ones(db.n_rows)
-            if st["backend"] in ("jax", "tpu", "device", "pallas") and st[
+            if st["backend"] != "host" and st[
                 "distance"
             ].kind in ("euclidean", "cosine"):
                 # device path for the huge raw-spectrum dimension
-                # ('pallas' routes euclidean blocks through the tiled kernel)
                 from ..ops.summaries import distance_rowwise_device
 
                 dm = distance_rowwise_device(
@@ -154,7 +163,6 @@ def main(argv=None) -> int:
                     m1,
                     m2,
                     normalize=True,
-                    backend=st["backend"],
                 )
             else:
                 dm = distance_rowwise(

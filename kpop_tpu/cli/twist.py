@@ -72,14 +72,20 @@ def main(argv=None) -> int:
     p.opt(["--seed"], "<integer>",
           ["RNG seed for k-mer resampling (kpop-tpu extension)"],
           lambda a: state.update(seed=int(a.get())))
+    def set_backend(a):
+        v = a.get()
+        if v not in ("host", "jax"):
+            raise ParseError(f"Invalid backend '{v}'")
+        state["backend"] = v
+
     p.opt(["--backend"], "'host'|'jax'",
           ["CA backend: float64 host numpy, or the sharded device path",
            "(k-mer axis over the mesh; kpop-tpu extension)"],
-          lambda a: state.update(backend=a.get()), "host")
+          set_backend, "host")
     p.opt(["--dims", "--n-dims"], "<positive_integer>",
           ["keep only this many leading CA dimensions (kpop-tpu",
-           "extension; the single-chip mode for flagship vocabularies,",
-           "where the full-dim twister exceeds one device's HBM —",
+           "extension; the single-device mode for flagship vocabularies,",
+           "where the full-dim twister exceeds one device's memory —",
            "inertia stays normalized over the full spectrum)"],
           lambda a: state.update(n_dims=a.get_int_pos()), "all")
     p.sep("Input/Output")

@@ -68,6 +68,15 @@ def _parse_keep_at_most(a: Args):
     return n
 
 
+BACKENDS = ("host", "jax")
+
+
+def _backend(v: str) -> str:
+    if v not in BACKENDS:
+        raise ParseError(f"Invalid backend '{v}'")
+    return v
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     program: List = []
@@ -261,7 +270,7 @@ def main(argv=None) -> int:
     )
     def _compute_distances(st, prefix):
         queries = KPopMatrix.of_binary(MatrixType.TWISTED, prefix)
-        if st["backend"] in ("jax", "tpu", "device", "pallas"):
+        if st["backend"] != "host":
             from ..ops.summaries import distance_rowwise_device
 
             st["twisted"].expect(MatrixType.TWISTED)
@@ -274,7 +283,6 @@ def main(argv=None) -> int:
                     st["twisted"].matrix,
                     queries.matrix,
                     normalize=st["distance_normalize"],
-                    backend=st["backend"],
                 ),
             )
         else:
@@ -360,13 +368,13 @@ def main(argv=None) -> int:
               _parse_keep_at_most(a)),
           "2")
 
-    p.opt(["--backend"], "'host'|'jax'|'pallas'",
+    p.opt(["--backend"], "'host'|'jax'",
           ["compute backend for -d distances and -s summaries: float64 host",
-           "numpy (exact, default), batched device kernels ('jax'), or the",
-           "tiled Pallas distance kernel ('pallas', euclidean only; other",
-           "distances use the XLA path) — kpop-tpu extensions for large",
-           "workloads; float32 distances, same tie semantics"],
-          lambda a: (lambda v: act(lambda st: st.update(backend=v)))(a.get()),
+           "numpy (exact, default) or batched device kernels ('jax') —",
+           "a kpop-tpu extension for large workloads; float32 distances,",
+           "same tie semantics"],
+          lambda a: (lambda v: act(lambda st: st.update(backend=v)))(
+              _backend(a.get())),
           "host")
 
     def add_summary_from_twisted(a: Args):
@@ -378,7 +386,7 @@ def main(argv=None) -> int:
             path = with_ext(prefix_out, SUMMARY_EXT)
             f = open_out(path)
             try:
-                if st["backend"] in ("jax", "tpu", "device", "pallas"):
+                if st["backend"] != "host":
                     from ..ops.summaries import summarize_rowwise_device
 
                     queries.expect(MatrixType.TWISTED)
@@ -391,7 +399,6 @@ def main(argv=None) -> int:
                         keep_at_most=st["summary_keep_at_most"],
                         normalize=st["distance_normalize"],
                         out=f,
-                        backend=st["backend"],
                     )
                 else:
                     for ln in summarize_rowwise_typed(

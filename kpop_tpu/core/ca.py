@@ -1,7 +1,7 @@
 """Correspondence analysis — the mathematical core of "twisting".
 
 Replaces the reference's delegation to R's ``ca`` package
-(src/KPopTwist:95-116) with an in-house implementation designed for TPUs:
+(src/KPopTwist:95-116) with an in-house implementation designed for accelerators:
 instead of a full SVD of the huge ``[n_kmers, n_samples]`` standardized
 residual matrix S, we eigendecompose the small ``[n_samples, n_samples]``
 Gram matrix ``G = S^T S`` (n_samples << n_kmers), which is exact, and turn
@@ -21,7 +21,7 @@ training column profile p (column normalized to sum 1),
 Number of dimensions: ``min(n_kmers, n_samples) - 1`` like R's ``ca``.
 
 The Gram matrix accumulation is the only O(n_kmers) step and is expressed as
-a single matmul — on TPU it runs on the MXU and shards over the k-mer axis
+a single matmul — on a device mesh it shards over the k-mer axis
 (see :mod:`kpop_tpu.parallel.ca_sharded`).
 """
 

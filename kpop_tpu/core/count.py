@@ -3,7 +3,7 @@
 Re-design of reference bin/KPopCount.ml:20-64 (``KMerCounter.compute``):
 instead of a bounded hash table fed one k-mer at a time, sequences are
 encoded to integer codes and whole windows are counted vectorized; for
-k <= DENSE_K_MAX a dense 4^k spectrum is used (the representation the TPU
+k <= DENSE_K_MAX a dense 4^k spectrum is used (the representation the device
 pipeline consumes directly), above that a sparse (codes, counts) merge.
 
 Observable behaviour matches the reference:

@@ -1,6 +1,6 @@
 """Spectrum database: the ``KPopCountDB`` capability.
 
-TPU-first re-design of the reference's ``KMerDB`` (lib/KMerDB.ml): the store
+Array-first re-design of the reference's ``KMerDB`` (lib/KMerDB.ml): the store
 is one contiguous ``[n_rows(kmers), n_cols(samples)]`` int32 matrix (the
 reference keeps one int32 Bigarray per spectrum, lib/KMerDB.ml:33-62) plus
 name tables and string metadata.  All per-cell loops become vectorized numpy

@@ -1,6 +1,6 @@
 """Dense named matrices with KPop type tags and text/binary I/O.
 
-TPU-first re-design of the reference's matrix layer (lib/Matrix.ml:271-345 for
+Array-first re-design of the reference's matrix layer (lib/Matrix.ml:271-345 for
 the typed wrapper, BiOCamLib ``Matrix`` for the base container): the payload is
 a single contiguous numpy array (promoted to a ``jax.Array`` inside kernels)
 instead of an array of per-row ``Float.Array``s, and parallel text I/O is

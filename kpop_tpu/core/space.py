@@ -5,7 +5,7 @@ Exact re-implementations of the reference's ``Space.Distance`` /
 ``Matrix.Base`` (lib/Matrix.ml:24-267) plus the per-query summarization
 (lib/Matrix.ml:632-766) — vectorized over whole matrices instead of
 per-element fork-parallel loops.  The numpy implementations here are the
-float64 golden path used by the CLI; the batched TPU kernels in
+float64 golden path used by the CLI; the batched device kernels in
 :mod:`kpop_tpu.ops.pairwise` are tested against them.
 """
 

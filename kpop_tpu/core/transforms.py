@@ -5,7 +5,7 @@ Exact re-implementations (vectorized) of the reference's
 ``stats_table_of_core_db`` (lib/KMerDB.ml:170-268).
 
 All functions take the counts matrix as ``[n_rows(kmers), n_cols(samples)]``
-float64 and are pure numpy; the JAX versions used inside fused TPU pipelines
+float64 and are pure numpy; the JAX versions used inside fused device pipelines
 live in :mod:`kpop_tpu.ops.transform_kernels` and are tested for agreement
 against these.
 """

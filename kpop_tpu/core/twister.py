@@ -5,7 +5,7 @@ Re-design of reference lib/Twister.ml and of the bash+R driver
 with an inertia row vector; training runs the in-house CA (:mod:`.ca`)
 directly on the in-memory counts DB — no table export, R subprocess or text
 round-trip — and projection of new spectra is a batched dense matmul
-(MXU-friendly) instead of a per-spectrum sparse matvec fork
+(matmul-friendly) instead of a per-spectrum sparse matvec fork
 (lib/Twister.ml:58-206).
 """
 
@@ -291,8 +291,8 @@ class TwistParameters:
     seed: int | None = None  # sampling RNG (deviation: explicit seed)
     # kpop-tpu extension (--dims): keep only the leading CA dimensions.
     # The reference's R ca() keeps all min(dims)-1; truncation is the
-    # single-chip mode for flagship vocabularies, where the full-dim
-    # twister exceeds one device's HBM (benchmarks/flagship_ca.py) —
+    # single-device mode for flagship vocabularies, where the full-dim
+    # twister exceeds one device's memory (benchmarks/flagship_ca.py) —
     # inertia stays normalized over the full non-trivial spectrum.
     n_dims: int | None = None
 
@@ -345,7 +345,7 @@ def twist_counter_db(
             table if col_w is None else table * col_w[None, :],
             n_dims=params.n_dims,
         )
-    elif backend in ("jax", "tpu", "sharded"):
+    elif backend in ("jax", "sharded"):
         # device CA: k-mer axis sharded over the full mesh, Gram matrix
         # psum-reduced (parallel/sharded.py)
         from ..parallel.mesh import make_mesh

@@ -1,21 +1,27 @@
 """ctypes binding for the native host runtime (kpop_native.cpp).
 
-Builds the shared library on first use with g++ (lazy, cached next to the
-source); falls back to the pure-numpy paths if no compiler is available.
+Builds the shared library on first use with g++ into a file named by a key
+of the committed source and the host CPU (architecture and feature flags),
+since ``-march=native`` code built on one host may not run on another; a
+library built elsewhere is never loaded.  Falls back to the pure-numpy
+paths if no compiler is available.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
+import platform
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "kpop_native.cpp")
-_LIB = os.path.join(_DIR, "libkpop_native.so")
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -26,19 +32,53 @@ _i8p = ctypes.POINTER(ctypes.c_int8)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
-def _build() -> bool:
+def _cpu_flags() -> str:
+    """The host CPU's feature flags line from /proc/cpuinfo ('' if none)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return ""
+
+
+def _lib_path() -> str:
+    """Library file for this source and this host CPU."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(platform.machine().encode())
+    h.update(_cpu_flags().encode())
+    return os.path.join(_DIR, "libkpop_native-%s.so" % h.hexdigest()[:16])
+
+
+def _build(path: str) -> bool:
+    """Compile into ``path`` atomically (concurrent test workers may build
+    at once) and remove libraries built under other keys."""
+    fd, tmp = tempfile.mkstemp(dir=_DIR, suffix=".so.tmp")
+    os.close(fd)
     cmd = [
         # -pthread: kpop_native.cpp spawns std::thread; on toolchains
         # older than glibc 2.34 thread construction throws at runtime
         # without it (inside a ctypes call, killing the process)
         "g++", "-O3", "-march=native", "-pthread", "-shared", "-fPIC",
-        "-o", _LIB, _SRC,
+        "-o", tmp, _SRC,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
-        return True
     except (OSError, subprocess.CalledProcessError):
+        os.unlink(tmp)
         return False
+    os.replace(tmp, path)
+    for old in glob.glob(os.path.join(_DIR, "libkpop_native*.so")):
+        if old != path:
+            try:
+                os.unlink(old)
+            except FileNotFoundError:  # removed by a concurrent build
+                pass
+    return True
 
 
 def get_lib():
@@ -48,28 +88,13 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(
-            _SRC
-        ):
-            if not _build():
-                return None
+        path = _lib_path()
+        if not os.path.exists(path) and not _build(path):
+            return None
         try:
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(path)
         except OSError:
             return None
-        # A stale .so (e.g. from a checkout whose mtime ties the source)
-        # may predate newer entry points: verify and rebuild once.
-        # KEEP THIS PROBE AT THE NEWEST ENTRY POINT when adding one.
-        if not hasattr(lib, "kpop_format_summary"):
-            del lib
-            if not _build():
-                return None
-            try:
-                lib = ctypes.CDLL(_LIB)
-            except OSError:
-                return None
-            if not hasattr(lib, "kpop_format_summary"):
-                return None
         lib.kpop_encode_dna.restype = _i64
         lib.kpop_encode_dna.argtypes = [_u8p, _i64, _i8p]
         lib.kpop_encode_protein.restype = _i64

@@ -4,7 +4,7 @@
 // per-read k-mer hashing and text parsing (reference bin/KPopCount.ml:20-64,
 // BiOCamLib Files.ReadsIterate / Sequences.Lint).  Here the equivalents are
 // C++ kernels exposed through a C ABI (consumed via ctypes,
-// kpop_tpu/native/__init__.py): they feed int8 base-code batches to the TPU
+// kpop_tpu/native/__init__.py): they feed int8 base-code batches to the device
 // pipeline and provide the dense host counting path.
 //
 // Encoding contract (must match kpop_tpu/core/kmers.py exactly):

@@ -3,14 +3,14 @@
 For k beyond the dense-LUT limit, mapping window codes to twister columns
 needs an associative lookup over the observed vocabulary.  A sorted-array
 binary search costs O(log V) dependent gathers per window (~21 iterations x
-2 limb gathers at V=200K); on TPU the lookup is gather-throughput-bound, so
-that multiplies the hot path's cost by ~40x vs the dense LUT.  A two-table
-cuckoo hash has a WORST-CASE of two probes: 6 gathers per window, fully
-static control flow, no data-dependent loops — the TPU-shaped answer.
+2 limb gathers at V=200K), and a gather-bound lookup multiplies the hot
+path's cost accordingly vs the dense LUT.  A two-table cuckoo hash has a
+WORST-CASE of two probes: 6 gathers per window, fully static control flow,
+no data-dependent loops.
 
 Host side builds the table once per classifier (vectorized numpy
 round-based insertion with eviction); the device lookup is 6 gathers + a
-handful of VPU integer ops.  Build failure (pathological vocabulary) falls
+handful of integer ops.  Build failure (pathological vocabulary) falls
 back to the sorted-vocab binary search in :mod:`.encode`.
 
 Replaces the hash-table machinery of the reference's

@@ -3,7 +3,7 @@
 JAX re-expression of the host reference :meth:`KmerSpace.window_codes`
 (kpop_tpu/core/kmers.py) for batches of sequences: the hot loop of the
 reference's ``KIH.iterc`` (bin/KPopCount.ml:38) becomes k shifted
-vectorized adds on the VPU, fused by XLA with the downstream scatter.
+vectorized adds, fused by XLA with the downstream scatter.
 
 Sequences are pre-encoded host-side to int8 base codes (A=0 C=1 G=2 T=3,
 -1 = window break / padding) and batched into ``[B, L]`` arrays.
@@ -200,7 +200,7 @@ def spectra_from_codes(
 
     Invalid windows are routed to an extra trash bucket and dropped.  This
     replaces the reference's bounded hash table (``KMers.IntHashFrequencies``)
-    with the dense representation the TPU pipeline consumes.
+    with the dense representation the device pipeline consumes.
     """
     B, W = window_codes.shape
     tgt = jnp.where(valid, window_codes, n_kmers)

@@ -1,4 +1,4 @@
-"""Fused TPU pipeline: reads -> spectra -> twisted coords -> classification.
+"""Fused device pipeline: reads -> spectra -> twisted coords -> classification.
 
 This is the performance core of kpop-tpu: the reference runs this as three
 processes exchanging text (KPopCount | KPopTwistDB -k | KPopTwistDB -s,
@@ -6,7 +6,7 @@ README.md:93) at ~13 seq/s/node (README.md:1049); here the whole chain is
 one jitted XLA program:
 
     encode -> window codes -> scatter-add spectrum -> vocab gather ->
-    normalize -> MXU matmul vs twister -> metric-weighted distances ->
+    normalize -> matmul vs twister -> metric-weighted distances ->
     tie-aware top-k
 
 Everything is batched and static-shaped; the only host work is FASTA
@@ -16,7 +16,6 @@ parsing and int8 base encoding.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 
 import numpy as np
 
@@ -125,7 +124,7 @@ def build_classifier_params(
             )
         tw_rows = tw.T[order]
     # dtype applies to the twister only (the one large tensor: bf16 halves
-    # its HBM footprint and feeds the MXU natively); metric/class tensors
+    # its device footprint and traffic); metric/class tensors
     # are tiny and stay f32, and all accumulations are f32
     if distance.kind not in ("euclidean", "cosine"):
         raise ValueError(
@@ -180,17 +179,15 @@ def count_spectra(params: ClassifierParams, base_codes: "jnp.ndarray"):
     """``[B, L]`` base codes -> vocab-aligned spectra ``[B, V]`` (+trash).
 
     The optimization barrier between index computation and the scatter keeps
-    XLA from fusing the two, which otherwise blows up TPU compile time by
-    >10x at genome scale.
+    XLA from fusing the two (kept until measured on the GPU, ROADMAP 3.6).
     """
     V = params.n_vocab
     tgt = vocab_lookup(params, base_codes)
     B, W = tgt.shape
     tgt = jax.lax.optimization_barrier(tgt)
-    # counts accumulate in f32 even when the twister is stored bf16: a
-    # bf16 scatter was measured 6% SLOWER on the target chip (16-bit
-    # scatter emulation outweighs the halved traffic), so the spectrum
-    # stays f32 and only the matmul read narrows via astype in project()
+    # counts accumulate in f32 even when the twister is stored bf16 (a
+    # bf16 count stops being exact above 256); only the matmul read
+    # narrows, via astype in project()
     out = jnp.zeros((B, V + 1), dtype=jnp.float32)
     b_idx = jax.lax.broadcasted_iota(jnp.int32, (B, W), 0)
     out = out.at[b_idx, tgt].add(jnp.ones((B, W), dtype=jnp.float32))
@@ -207,9 +204,8 @@ def project_reads(
 
     Projection is linear in the spectrum, so
     ``twisted[b] = sum_w twister[lut[code_w]] / n_known`` — an embedding-bag
-    gather-sum streamed over window chunks with ``lax.scan``.  On TPU this
-    is HBM-bandwidth bound (rows of 4d bytes) instead of scatter-bound, and
-    compiles in seconds instead of minutes.
+    gather-sum streamed over window chunks with ``lax.scan``: it reads rows
+    of 4d bytes instead of scattering into a ``[B, V]`` spectrum.
 
     Semantics match lib/Twister.ml:146-188: unknown k-mers drop out (zero
     twister row), duplicates accumulate, normalization divides by the total
@@ -247,18 +243,20 @@ def project_reads(
 
 
 def project(params: ClassifierParams, spectra: "jnp.ndarray", normalize=True):
-    """Normalize spectra to sum 1 and project through the twister (MXU).
+    """Normalize spectra to sum 1 and project through the twister.
 
     Matches lib/Twister.ml:173-183 (normalization over known k-mers only —
     the trash bucket is already dropped by :func:`count_spectra`).
     Projection is linear, so the normalization divides the tiny ``[B, d]``
     output instead of the ``[B, V]`` spectrum — one full spectrum-sized
-    HBM pass saved per batch.
+    device-memory pass saved per batch.  HIGHEST keeps an f32 twister out
+    of TF32 on GPUs; a bf16 twister takes bf16 operands and f32 sums.
     """
     out = jnp.dot(
         spectra.astype(params.twister.dtype),
         params.twister,
         preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
     )
     if normalize:
         # f32 accumulation: a bf16 spectrum's counts are (near-)exact
@@ -272,7 +270,7 @@ def distances_to_classes(
     params: ClassifierParams, twisted: "jnp.ndarray", normalize=True
 ):
     """Metric-weighted euclidean or cosine distances ``[B, C]`` via the
-    matmul expansion |a-b|^2 = |a|^2 + |b|^2 - 2ab (runs on the MXU);
+    matmul expansion |a-b|^2 = |a|^2 + |b|^2 - 2ab;
     cosine is the expansion / 2 with /2-scaled norms (lib/Space.ml:150-205,
     treated uniformly with euclidean like the reference)."""
     a = twisted
@@ -286,7 +284,10 @@ def distances_to_classes(
     else:
         b = params.class_coords
     am = a * params.metric[None, :]
-    cross = jnp.dot(am, b.T, preferred_element_type=a.dtype)
+    cross = jnp.dot(
+        am, b.T, preferred_element_type=a.dtype,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     na2 = (am * a).sum(axis=1)
     nb2 = (b * b * params.metric[None, :]).sum(axis=1)
     d2 = jnp.maximum(na2[:, None] + nb2[None, :] - 2.0 * cross, 0.0)
@@ -309,55 +310,29 @@ def summarize_batch(dmat: "jnp.ndarray", req_len: int = 2):
     return mean, stddev, median, mad, -neg_top, idx
 
 
-@partial(
-    jax.jit, static_argnames=("k", "canonical", "normalize", "req_len")
-)
-def classify_step(
-    vocab_lut,
-    twister,
-    metric,
-    class_coords,
-    class_norms,
-    base_codes,
-    *,
-    k: int,
-    canonical: bool,
-    normalize: bool = True,
-    req_len: int = 2,
-):
-    """Jit-compiled full pipeline on raw arrays (used by __graft_entry__)."""
-    params = ClassifierParams(
-        vocab_lut, twister, metric, class_coords, class_norms, k, canonical
-    )
+@jax.jit
+def dmat_dense(params: ClassifierParams, base_codes):
+    """Served step, dense path: ``[B, L]`` base codes -> ``[B, C]`` class
+    distances through the scattered ``[B, V]`` spectrum."""
     spectra = count_spectra(params, base_codes)
-    twisted = project(params, spectra, normalize=normalize)
-    dmat = distances_to_classes(params, twisted, normalize=normalize)
-    return (*summarize_batch(dmat, req_len), twisted)
+    return distances_to_classes(params, project(params, spectra))
 
 
-def _forward_step(params: ClassifierParams, base_codes, req_len: int):
-    spectra = count_spectra(params, base_codes)
-    twisted = project(params, spectra)
-    dmat = distances_to_classes(params, twisted)
-    return (*summarize_batch(dmat, req_len), twisted, dmat)
+@jax.jit
+def dmat_bag(params: ClassifierParams, base_codes):
+    """Served step, embedding-bag path (:func:`project_reads`)."""
+    return distances_to_classes(params, project_reads(params, base_codes))
 
 
-_forward_jit = jax.jit(_forward_step, static_argnames=("req_len",))
-
-
-class TpuClassifier:
-    """Convenience wrapper: host reads in, per-batch device classification.
-
-    Params travel as jit arguments (pytree), never as captured constants.
-    """
-
-    def __init__(self, params: ClassifierParams, req_len: int = 2):
-        self.params = params
-        self.req_len = req_len
-
-    def classify_codes(self, base_codes: np.ndarray):
-        out = _forward_jit(self.params, jnp.asarray(base_codes), self.req_len)
-        return jax.tree.map(np.asarray, out)
+def choose_project_path(n_vocab: int, d: int, B: int, W: int) -> str:
+    """'dense' or 'bag' by estimated device-memory traffic per batch.  dense
+    touches the [B, V] spectrum ~3x (zero + scatter + project read) plus
+    the [V, d] twister; bag gathers B*W rows of 4d bytes, weighted 16x for
+    the poor efficiency of small-row gathers (a model not yet calibrated on
+    the GPU, ROADMAP 1.4)."""
+    bag_bytes = 4 * B * W * d * 16
+    dense_bytes = 12 * B * n_vocab + 4 * n_vocab * d
+    return "bag" if bag_bytes < dense_bytes else "dense"
 
 
 jax.tree_util.register_dataclass(

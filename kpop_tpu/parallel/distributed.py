@@ -2,11 +2,11 @@
 
 The reference has no distributed backend — multi-node runs are manual file
 sharding (SURVEY.md §2.5/P3).  kpop-tpu runs as one SPMD job:
-``initialize()`` wires up ``jax.distributed`` (TPU pods auto-discover
-coordinates; CPU/GPU test rigs pass them explicitly), after which the same
-mesh/sharding code paths work unchanged from 1 chip to a full pod — in-slice
-collectives ride ICI, host-sharded input (parallel/input.py) and sharded
-checkpoints (parallel/checkpoint.py) ride DCN.
+``initialize()`` wires up ``jax.distributed`` from explicit coordinates
+or ``JAX_COORDINATOR_ADDRESS``, after which the same mesh/sharding code
+paths work unchanged from one device to many hosts; host-sharded input
+(parallel/input.py) and sharded checkpoints (parallel/checkpoint.py) work
+per process.
 """
 
 from __future__ import annotations
@@ -23,23 +23,14 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed if running multi-process.
 
-    No-ops when single-process (the common dev case) unless explicit
-    coordinates are given.  On TPU pods all arguments are auto-detected.
+    No-ops when single-process (the common case) unless explicit
+    coordinates or ``JAX_COORDINATOR_ADDRESS`` are given.
     """
     jax = jax_setup()
-    env_says_multiprocess = any(
-        os.environ.get(v)
-        for v in (
-            "JAX_COORDINATOR_ADDRESS",
-            "COORDINATOR_ADDRESS",
-            "TPU_WORKER_HOSTNAMES",
-            "MEGASCALE_COORDINATOR_ADDRESS",
-        )
-    )
     if (
         coordinator_address is None
         and num_processes is None
-        and not env_says_multiprocess
+        and not os.environ.get("JAX_COORDINATOR_ADDRESS")
     ):
         return
     jax.distributed.initialize(

@@ -2,11 +2,11 @@
 
 The reference scales ingest by shell-level scatter (one ``KPopCount`` per
 sample via ``Parallel``, README.md:571-597) and across nodes by manual file
-sharding merged later with ``-a`` (README.md:1049-1067).  The TPU-native
-equivalent: every JAX process reads its own slice of the input file list,
+sharding merged later with ``-a`` (README.md:1049-1067).  The equivalent
+here: every JAX process reads its own slice of the input file list,
 encodes batches locally (C++ fast path when available), and the per-process
 batches are assembled into one global, mesh-sharded ``jax.Array`` with
-``jax.make_array_from_process_local_data`` — DCN traffic only for the
+``jax.make_array_from_process_local_data`` — host-to-host traffic only for the
 assembly metadata, never the sequence bytes.
 
 On a single host this degenerates gracefully (process_count == 1), which is
@@ -111,6 +111,6 @@ def global_batch(
 ) -> "jax.Array":
     """Assemble per-process local batches into one global jax.Array sharded
     over the "data" axis of the mesh (the global batch dimension is
-    process-stacked; ICI/DCN handles placement)."""
+    process-stacked; XLA handles placement)."""
     sharding = NamedSharding(mesh, P(DATA_AXIS, None))
     return jax.make_array_from_process_local_data(sharding, local_codes)

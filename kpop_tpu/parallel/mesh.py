@@ -2,7 +2,7 @@
 
 The reference's parallelism is fork-based multiprocessing within one node
 plus manual multi-node sharding with file merges (SURVEY.md §2.5).  The
-TPU-native replacement is a single ``jax.sharding.Mesh`` with two logical
+replacement here is a single ``jax.sharding.Mesh`` with two logical
 axes:
 
 - ``"data"``  — samples / query batches (the reference's P2/P3 scatter),
@@ -11,7 +11,7 @@ axes:
 
 Shardings are expressed with ``NamedSharding`` + ``jit`` so XLA inserts the
 collectives (psum over "kmer" for Gram matrices and projections; all-gathers
-over "data" for cross-batch reductions) and they ride ICI, not host memory.
+over "data" for cross-batch reductions) and they ride the device interconnect, not host memory.
 """
 
 from __future__ import annotations

@@ -21,11 +21,11 @@ axis instead:
 
 Each device scatter-counts only the windows whose vocab index lands in its
 row range into a local ``[B, V/shard]`` slice, projects it through its
-twister shard on the MXU, and a single ``psum`` over ``"kmer"`` of the
+twister shard, and a single ``psum`` over ``"kmer"`` of the
 ``[B, d]`` partials produces the full twisted coordinates; the class
 distance digest is then computed redundantly per shard (it is tiny).  The
 collective payload per batch is ``B*d`` floats — independent of V — so the
-design scales to arbitrary vocabulary sizes at constant ICI traffic.
+design scales to arbitrary vocabulary sizes at constant collective traffic.
 
 Semantics are identical to the replicated pipeline (ops/pipeline.py):
 unknown k-mers drop, duplicates accumulate, normalization divides by the
@@ -117,7 +117,7 @@ def sharded_dmat_fn(mesh: Mesh, n_vocab: int, normalize: bool = True):
         in_shard = known & (local >= 0) & (local < V_local)
         tgt = jnp.where(in_shard, local, V_local)
         # the barrier keeps XLA from fusing index computation into the
-        # scatter (same compile-time blowup as ops/pipeline.count_spectra)
+        # scatter, as in ops/pipeline.count_spectra
         tgt = jax.lax.optimization_barrier(tgt)
         B, W = tgt.shape
         out = jnp.zeros((B, V_local + 1), jnp.float32)
@@ -128,6 +128,7 @@ def sharded_dmat_fn(mesh: Mesh, n_vocab: int, normalize: bool = True):
             spec.astype(p.twister.dtype),
             p.twister,
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
         if normalize:
             # global known-kmer count: the lookup tables are replicated so
@@ -169,11 +170,14 @@ def sharded_dmat_fn(mesh: Mesh, n_vocab: int, normalize: bool = True):
 
 
 def choose_kmer_parallel(
-    twister_bytes: int, n_devices: int, budget_bytes: int
+    twister_bytes: int, n_devices: int, budget_bytes: int | None
 ) -> int:
     """Smallest divisor of ``n_devices`` whose twister shard fits the
     per-device parameter budget (falls back to fully kmer-sharded when even
-    that exceeds it — the least-bad layout)."""
+    that exceeds it — the least-bad layout).  No budget (CPU devices):
+    replicate."""
+    if budget_bytes is None:
+        return 1
     best = n_devices
     for kp in sorted(
         d for d in range(1, n_devices + 1) if n_devices % d == 0

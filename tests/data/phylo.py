@@ -223,3 +223,48 @@ def write_fastq(path: str, reads: List[str], name_prefix: str = "r") -> None:
     with open(path, "w") as f:
         for i, r in enumerate(reads):
             f.write("@%s%d\n%s\n+\n%s\n" % (name_prefix, i, r, "I" * len(r)))
+
+
+# ---------------- class corpus (a covid-shaped training table) ----------------
+
+
+def class_corpus(
+    rng: np.random.Generator,
+    window_codes,
+    n_classes: int,
+    genome_len: int,
+    tips_per_class: int = 4,
+    between: float = 0.08,
+    within: float = 0.15,
+    rate: float = 0.01,
+):
+    """Sibling clades with within-class divergence comparable to
+    between-class (the difficulty of the reference's SARS-CoV-2 lineage
+    classifier).  The first half of each clade's tips (by tip id) are
+    summed into that class's training spectrum; the rest are held out.
+
+    ``window_codes(genome) -> k-mer codes`` counts one genome (e.g.
+    ``KmerSpace.window_codes``).  Returns (vocab: sorted codes [V],
+    table: [V, n_classes] int32 counts, held_out: [(class, genome int8)]).
+    """
+    tree = random_clade_tree(
+        rng, n_classes, tips_per_class, between=between, within=within
+    )
+    root = rng.integers(0, 4, size=genome_len)
+    by_class: Dict[int, list] = {}
+    for name, codes in sim_seq(rng, tree, root, rate=rate).items():
+        tip, cls = name.split("-")
+        by_class.setdefault(int(cls) - 1, []).append((int(tip), codes))
+    spectra = []
+    held_out = []
+    for c in range(n_classes):
+        members = sorted(by_class[c], key=lambda t: t[0])
+        half = len(members) // 2
+        wc = np.concatenate([window_codes(g) for _, g in members[:half]])
+        spectra.append(np.unique(wc, return_counts=True))
+        held_out.extend((c, g.astype(np.int8)) for _, g in members[half:])
+    vocab = np.unique(np.concatenate([u for u, _ in spectra]))
+    table = np.zeros((len(vocab), n_classes), dtype=np.int32)
+    for c, (u, n) in enumerate(spectra):
+        table[np.searchsorted(vocab, u), c] = n
+    return vocab, table, held_out

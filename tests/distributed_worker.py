@@ -20,7 +20,6 @@ def main() -> int:
     pid, port, workdir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     n_procs = int(sys.argv[4]) if len(sys.argv) > 4 else 2
     local_dev = int(sys.argv[5]) if len(sys.argv) > 5 else 4
-    os.environ["KPOP_PLATFORM"] = "cpu"
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={local_dev} "

@@ -9,8 +9,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_harness_quickstart_and_relatedness():
-    env = dict(os.environ, PYTHONPATH=REPO, KPOP_PLATFORM="cpu",
-               JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     res = subprocess.run(
         [sys.executable, "-m", "benchmarks.harness", "quickstart"],
         cwd=REPO, env=env, capture_output=True, text=True, check=True,
@@ -26,8 +25,7 @@ def test_harness_quickstart_and_relatedness():
 
 
 def test_harness_device_backends():
-    env = dict(os.environ, PYTHONPATH=REPO, KPOP_PLATFORM="cpu",
-               JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     res = subprocess.run(
         [sys.executable, "-m", "benchmarks.harness", "quickstart",
          "--backend", "jax"],
@@ -37,8 +35,8 @@ def test_harness_device_backends():
     assert data["backend"] == "jax" and data["accuracy"] == 1.0
     res = subprocess.run(
         [sys.executable, "-m", "benchmarks.harness", "relatedness",
-         "--backend", "pallas"],
+         "--backend", "jax"],
         cwd=REPO, env=env, capture_output=True, text=True, check=True,
     )
     data = json.loads(res.stdout.strip().splitlines()[-1])
-    assert data["backend"] == "pallas" and data["pairs"] == data["samples"] ** 2
+    assert data["backend"] == "jax" and data["pairs"] == data["samples"] ** 2

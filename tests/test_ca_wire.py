@@ -1,15 +1,11 @@
-"""Error-free f32 transforms (ops/dd.py) and the compact-upload CA path.
-
-The dd primitives must be EXACT (two_sum/two_prod are error-free by
-construction when f32 ops are IEEE round-to-nearest); the reconstructed
-residual must match the host float64 residual to ~2^-45 relative.
-"""
+"""The device CA's wire dtypes: the table travels in the smallest dtype
+that holds it exactly, and the float64 CA on the device matches the host
+float64 CA to float64 tolerances whatever the wire."""
 
 import numpy as np
 import pytest
 
 from kpop_tpu.core.ca import fit_ca
-from kpop_tpu.ops import dd
 
 
 @pytest.fixture(scope="module")
@@ -19,65 +15,16 @@ def mesh():
     return make_mesh(8)
 
 
-def test_two_sum_exact():
-    rng = np.random.default_rng(0)
-    a = rng.standard_normal(4096).astype(np.float32)
-    b = (rng.standard_normal(4096) * 1e-6).astype(np.float32)
-    s, e = dd.two_sum(a, b)
-    s, e = np.asarray(s, np.float64), np.asarray(e, np.float64)
-    np.testing.assert_array_equal(
-        s + e, a.astype(np.float64) + b.astype(np.float64)
-    )
-
-
-def test_two_prod_exact():
-    rng = np.random.default_rng(1)
-    a = rng.standard_normal(4096).astype(np.float32)
-    b = rng.standard_normal(4096).astype(np.float32)
-    p, e = dd.two_prod(a, b)
-    p, e = np.asarray(p, np.float64), np.asarray(e, np.float64)
-    np.testing.assert_array_equal(
-        p + e, a.astype(np.float64) * b.astype(np.float64)
-    )
-
-
-def test_residual_dd_matches_host_f64():
-    rng = np.random.default_rng(2)
-    R, C = 257, 9
-    x = rng.integers(0, 1000, size=(R, C)).astype(np.float32)
-    alpha = rng.random(R) + 0.5
-    beta = (rng.random(C) + 0.5) * 1e-4
-    u = rng.random(R)
-    v = rng.random(C)
-    ah, al = dd.split_f64(alpha)
-    bh, bl = dd.split_f64(beta)
-    uh, ul = dd.split_f64(u)
-    vh, vl = dd.split_f64(v)
-    hi, lo = dd.residual_dd(
-        x,
-        ah[:, None], al[:, None],
-        bh[None, :], bl[None, :],
-        uh[:, None], ul[:, None],
-        vh[None, :], vl[None, :],
-    )
-    got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
-    want = x.astype(np.float64) * alpha[:, None] * beta[None, :] - np.outer(
-        u, v
-    )
-    scale = np.abs(want).max()
-    assert np.abs(got - want).max() < scale * 2.0**-45
-
-
 def test_ca_compact_integer_table_tight(mesh):
     """Integer counts take the compact u16 wire path and still match the
-    host float64 CA to the same tight tolerances as the two-limb upload."""
+    host float64 CA to tight float64 tolerances."""
     from kpop_tpu.parallel import sharded
 
     rng = np.random.default_rng(3)
     table = rng.integers(0, 3000, size=(514, 9)).astype(np.float64)
     want = fit_ca(table)
     coords, inertia, twister, sv = sharded.ca_fit_sharded(mesh, table)
-    assert sharded.LAST_DD_UPLOAD == "u16"
+    assert sharded.LAST_CA_WIRE == "u16"
     np.testing.assert_allclose(sv, want.sv, rtol=0, atol=1e-8)
     np.testing.assert_allclose(inertia, want.inertia, rtol=0, atol=1e-8)
     np.testing.assert_allclose(coords, want.sample_coords, rtol=0, atol=1e-6)
@@ -85,19 +32,19 @@ def test_ca_compact_integer_table_tight(mesh):
 
 
 def test_ca_compact_wire_dtypes(mesh):
-    """u8 / f32 wire dtypes and the limbs fallback are selected by content."""
+    """u8 / f32 / f64 wire dtypes are selected by content."""
     from kpop_tpu.parallel import sharded
 
     rng = np.random.default_rng(4)
     small = rng.integers(0, 200, size=(130, 6)).astype(np.float64)
     sharded.ca_fit_sharded(mesh, small)
-    assert sharded.LAST_DD_UPLOAD == "u8"
+    assert sharded.LAST_CA_WIRE == "u8"
     f32t = (rng.random((130, 6)) * 5).astype(np.float32)
     sharded.ca_fit_sharded(mesh, f32t)
-    assert sharded.LAST_DD_UPLOAD == "f32"
+    assert sharded.LAST_CA_WIRE == "f32"
     inexact = rng.random((130, 6)) * 5  # float64, not f32-exact
     sharded.ca_fit_sharded(mesh, inexact)
-    assert sharded.LAST_DD_UPLOAD == "limbs"
+    assert sharded.LAST_CA_WIRE == "f64"
 
 
 def test_ca_compact_col_weights(mesh):
@@ -112,15 +59,15 @@ def test_ca_compact_col_weights(mesh):
     coords, inertia, twister, sv = sharded.ca_fit_sharded(
         mesh, table, col_weights=w
     )
-    assert sharded.LAST_DD_UPLOAD == "u16"
+    assert sharded.LAST_CA_WIRE == "u16"
     np.testing.assert_allclose(sv, want.sv, rtol=0, atol=1e-8)
     np.testing.assert_allclose(coords, want.sample_coords, rtol=0, atol=1e-6)
     np.testing.assert_allclose(twister, want.twister, rtol=0, atol=1e-5)
-    # the two-limb fallback honors weights identically
+    # the f64 wire honors weights identically
     c2, _i, t2, s2 = sharded.ca_fit_sharded(
         mesh, table.astype(np.float64) + 1e-9, col_weights=w
     )
-    assert sharded.LAST_DD_UPLOAD == "limbs"
+    assert sharded.LAST_CA_WIRE == "f64"
     np.testing.assert_allclose(s2, sv, rtol=0, atol=1e-7)
     np.testing.assert_allclose(c2, coords, rtol=0, atol=1e-6)
 
@@ -135,8 +82,48 @@ def test_ca_compact_device_phi(mesh):
     table = rng.integers(0, 300, size=(97, 6)).astype(np.float64)
     _c, _i, tw_host, _s = sharded.ca_fit_sharded(mesh, table)
     _c, _i, tw_dev, _s = sharded.ca_fit_sharded(mesh, table, phi="device")
-    assert sharded.LAST_DD_UPLOAD == "u16"
+    assert sharded.LAST_CA_WIRE == "u16"
     assert isinstance(tw_dev, jnp.ndarray) and tw_dev.shape == (97, 5)
     np.testing.assert_allclose(
         np.asarray(tw_dev, dtype=np.float64).T, tw_host, rtol=0, atol=1e-6
     )
+
+
+def test_residual_is_float64_and_matches_host():
+    """The device residual S = x*alpha*beta - u v is computed in float64
+    under the CA's scoped 64-bit mode, from a compact table block."""
+    import jax
+
+    from kpop_tpu.parallel.sharded import _residual
+
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 200, size=(33, 5)).astype(np.uint8)
+    alpha, u = rng.random(33) + 0.5, rng.random(33)
+    beta, v = (rng.random(5) + 0.5) * 1e-4, rng.random(5)
+    with jax.enable_x64(True):
+        got = jax.jit(_residual)(x, alpha, u, beta, v)
+    assert got.dtype == np.float64
+    want = x * alpha[:, None] * beta[None, :] - np.outer(u, v)
+    # float64 rounding of the two products and the difference
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=4e-16 * np.abs(want).max())
+
+
+def test_gram_local_matches_host_float64():
+    """Blocked float64 Gram (ragged last block, padded rows contribute
+    nothing) equals the host float64 S^T S plus the carried-in sum."""
+    import jax
+
+    from kpop_tpu.parallel.sharded import _gram_local
+
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 60000, size=(101, 4)).astype(np.uint16)
+    alpha, u = rng.random(101) + 0.5, rng.random(101)
+    beta, v = (rng.random(4) + 0.5) * 1e-6, rng.random(4)
+    acc0 = rng.random((4, 4))
+    with jax.enable_x64(True):
+        got = jax.jit(_gram_local, static_argnames="n_blocks")(
+            x, alpha, u, beta, v, acc0, n_blocks=7)
+    S = x * alpha[:, None] * beta[None, :] - np.outer(u, v)
+    np.testing.assert_allclose(np.asarray(got), acc0 + S.T @ S,
+                               rtol=1e-13, atol=0)

@@ -117,27 +117,3 @@ def test_countdb_distances_backend_jax(tmp_path):
         np.asarray(dj.matrix.data), np.asarray(dh.matrix.data),
         rtol=2e-5, atol=1e-6,
     )
-
-
-def test_countdb_distances_backend_pallas(tmp_path):
-    """--backend pallas routes the euclidean blocks through the tiled Pallas
-    kernel (interpret mode on CPU) with the same result."""
-    (tmp_path / "a.fasta").write_text(
-        ">x1\nACGTACGTACGTACGTAAAA\n>x2\nACGTACGTACGTACGTAAAC\n"
-        ">y1\nTTTTGGGGCCCCAAAATTTT\n>y2\nTTTTGGGGCCCCAAAATTTA\n"
-    )
-    sh(
-        "kpop-count -k 4 -L -f a.fasta -o S && "
-        "kpop-countdb -k S --distances '~.' '~.' DH && "
-        "kpop-countdb -k S --backend pallas --distances '~.' '~.' DP",
-        tmp_path,
-    )
-    from kpop_tpu.core.matrix import KPopMatrix, MatrixType
-
-    dh = KPopMatrix.of_binary(MatrixType.DMATRIX, str(tmp_path / "DH"))
-    dp = KPopMatrix.of_binary(MatrixType.DMATRIX, str(tmp_path / "DP"))
-    assert dh.matrix.row_names == dp.matrix.row_names
-    np.testing.assert_allclose(
-        np.asarray(dp.matrix.data), np.asarray(dh.matrix.data),
-        rtol=2e-5, atol=1e-6,
-    )

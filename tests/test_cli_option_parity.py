@@ -30,7 +30,7 @@ def markdown_of(cli: str) -> str:
     env = dict(os.environ)
     env["PATH"] = os.path.join(REPO, "bin") + os.pathsep + env["PATH"]
     env["PYTHONPATH"] = REPO
-    env.setdefault("KPOP_PLATFORM", "cpu")
+    env.setdefault("JAX_PLATFORMS", "cpu")
     res = subprocess.run(
         [cli, "--markdown"], env=env, capture_output=True, text=True
     )
@@ -61,7 +61,7 @@ def test_splits_at_most_rejects_all_cleanly(tmp_path):
     env = dict(os.environ)
     env["PATH"] = os.path.join(REPO, "bin") + os.pathsep + env["PATH"]
     env["PYTHONPATH"] = REPO
-    env.setdefault("KPOP_PLATFORM", "cpu")
+    env.setdefault("JAX_PLATFORMS", "cpu")
     res = subprocess.run(
         ["kpop-twistdb", "--splits-at-most", "all"],
         env=env,
@@ -81,7 +81,7 @@ def test_kpop_count_accepts_threads(tmp_path):
     env = dict(os.environ)
     env["PATH"] = os.path.join(REPO, "bin") + os.pathsep + env["PATH"]
     env["PYTHONPATH"] = REPO
-    env.setdefault("KPOP_PLATFORM", "cpu")
+    env.setdefault("JAX_PLATFORMS", "cpu")
     for opt in ("-t", "-T", "--threads"):
         res = subprocess.run(
             ["kpop-count", "-k", "3", "-L", opt, "4", "-f", str(fa)],
@@ -99,7 +99,7 @@ def test_splits_seed_rejects_garbage_cleanly(tmp_path):
     env = dict(os.environ)
     env["PATH"] = os.path.join(REPO, "bin") + os.pathsep + env["PATH"]
     env["PYTHONPATH"] = REPO
-    env.setdefault("KPOP_PLATFORM", "cpu")
+    env.setdefault("JAX_PLATFORMS", "cpu")
     res = subprocess.run(
         ["kpop-twistdb", "--splits-seed", "abc"],
         env=env,

@@ -1,5 +1,7 @@
 """The C++ native host runtime must agree with the numpy golden paths."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -568,3 +570,23 @@ def test_count_dense_batch_mt_matches_sequential():
     seq = native.count_dense_batch(codes, 7, True, threads=1)
     mt = native.count_dense_batch(codes, 7, True, threads=4)
     np.testing.assert_array_equal(seq, mt)
+
+
+def test_library_is_keyed_by_source_and_host(monkeypatch):
+    path = native._lib_path()
+    assert os.path.basename(path).startswith("libkpop_native-")
+    monkeypatch.setattr(native, "_cpu_flags", lambda: "another host")
+    assert native._lib_path() != path
+
+
+def test_library_rebuilds_when_its_key_differs(monkeypatch):
+    """A library built under another key (another host or source) is never
+    loaded: a new key means a build of a new file."""
+    built = []
+    monkeypatch.setattr(native, "_cpu_flags", lambda: "another host")
+    monkeypatch.setattr(native, "_build",
+                        lambda path: built.append(path) or False)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    assert native.get_lib() is None
+    assert built == [native._lib_path()]

@@ -61,7 +61,7 @@ def test_cli_verbose_emits_progress_on_stderr_only(tmp_path):
     env = dict(os.environ)
     env["PATH"] = os.path.join(REPO, "bin") + os.pathsep + env["PATH"]
     env["PYTHONPATH"] = REPO
-    env.setdefault("KPOP_PLATFORM", "cpu")
+    env.setdefault("JAX_PLATFORMS", "cpu")
     rng = np.random.default_rng(0)
     spectra = tmp_path / "in.KPopSpectra.txt"
     with open(spectra, "w") as f:

@@ -1,7 +1,7 @@
 """Mesh-scaling regression: the sharded CA and the kmer-sharded serving
 must not slow down pathologically as the mesh grows (the collective payload
-is O(B x d), independent of the sharded axis).  The committed full curve is
-BENCH_SCALING.json (benchmarks/scaling.py)."""
+is O(B x d), independent of the sharded axis).  A CPU statistic of
+benchmarks/scaling.py, not a device metric."""
 
 import json
 import os

@@ -69,7 +69,7 @@ def test_pairwise_sharded_matches_host(mesh):
 
 
 def test_ca_dd_precision_tight(mesh):
-    """The default dd path (two-limb Gram + host f64 eigh) must match the
+    """The default float64 path (device f64 Gram + host f64 eigh) must match the
     host float64 CA to tight tolerances — no per-dimension sign fixups
     needed since both use the same deterministic sign convention."""
     from kpop_tpu.parallel.sharded import ca_fit_sharded
@@ -87,16 +87,16 @@ def test_ca_dd_precision_tight(mesh):
 
 
 def test_ca_dd_beats_fast_at_long_axis(mesh):
-    """At a 200K-row k-mer axis the two-limb Gram must actually change the
+    """At a 200K-row k-mer axis the float64 Gram must actually change the
     answer: both sample coordinates and singular values come out an order
     of magnitude closer to the float64 host CA than the all-f32 device path
-    (measured ~30x; asserted >=5x with absolute caps)."""
+    (asserted >=5x with absolute caps)."""
     from kpop_tpu.parallel.sharded import ca_fit_sharded
 
     rng = np.random.default_rng(4)
     table = rng.random((200_000, 7)) * 10.0
     want = fit_ca(table)
-    c_dd, _i, t_dd, sv_dd = ca_fit_sharded(mesh, table, precision="dd")
+    c_dd, _i, t_dd, sv_dd = ca_fit_sharded(mesh, table, precision="f64")
     c_f, _i, t_f, sv_f = ca_fit_sharded(mesh, table, precision="fast")
     err = lambda a, b: np.abs(a - b).max()  # noqa: E731
     assert err(sv_dd, want.sv) < 1e-8
@@ -107,24 +107,27 @@ def test_ca_dd_beats_fast_at_long_axis(mesh):
 
 
 def test_ca_dd_multi_block(mesh):
-    """A tiny block_bytes forces the dd path through several residual/upload
-    blocks; parity with host f64 and with phi='device' must hold across the
-    block boundaries (incl. the zero-padded tail of the last block)."""
+    """A tiny budget forces the float64 path through several streamed
+    upload blocks; parity with host f64 and with phi='device' must hold
+    across the block boundaries (incl. the zero-padded tail of the last
+    block)."""
     import jax.numpy as jnp
 
+    from kpop_tpu.parallel import sharded
     from kpop_tpu.parallel.sharded import ca_fit_sharded
 
     rng = np.random.default_rng(11)
     table = rng.random((531, 6)) * 10.0  # 531 rows: ragged last block
     want = fit_ca(table)
     coords, inertia, twister, sv = ca_fit_sharded(
-        mesh, table, block_bytes=6 * 4 * 64  # 64 rows/block -> 9 blocks
+        mesh, table, hbm_bytes=2 << 10  # several blocks, ragged tail
     )
+    assert sharded.LAST_CA_STREAM["n_blocks"] > 2
     np.testing.assert_allclose(sv, want.sv, rtol=0, atol=1e-8)
     np.testing.assert_allclose(coords, want.sample_coords, rtol=0, atol=1e-6)
     np.testing.assert_allclose(twister, want.twister, rtol=0, atol=1e-5)
     _c, _i, tw_dev, _s = ca_fit_sharded(
-        mesh, table, phi="device", block_bytes=6 * 4 * 64
+        mesh, table, phi="device", hbm_bytes=2 << 10
     )
     assert isinstance(tw_dev, jnp.ndarray) and tw_dev.shape == (531, 5)
     np.testing.assert_allclose(
